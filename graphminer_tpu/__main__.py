@@ -37,7 +37,7 @@ def main(argv=None):
     p.add_argument("--engine", default=cfg.engine,
                    help="frontier engine: compact | map")
     p.add_argument("--fast", action="store_true",
-                   help="fast engines: tc=stream, clique 4/5=hi/lo MXU "
+                   help="fast engines: tc=stream, clique 4/5=hi/lo matmul "
                         "bilinear, clique>=6=streamed recursive hi/lo, "
                         "sgl diamond=tri-support, motif 3/4=formula over "
                         "fast engines")
@@ -52,9 +52,6 @@ def main(argv=None):
     import jax
     if ns.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from .io.cache import enable_compile_cache
-    enable_compile_cache()    # persistent XLA executables across CLI runs
-
     from . import load_graph
 
     needs_labels = ns.workload in ("fsm", "gks", "query")

@@ -18,15 +18,12 @@ class Config:
     engine: str = "compact"           # "compact" | "map"
     backend: str = "auto"             # setops backend: "auto" | "bc" | "bs"
     bucketed: bool = True             # degree-class task partitioning
-    dense_core: int = 16384           # MXU core size (0 = disable hybrid)
+    dense_core: int = 16384           # dense matmul core (0 = no hybrid)
 
     # shapes
     chunk: int = 16384                # edge tasks per device chunk
     sub: Optional[int] = None         # frontier sub-chunk (default = chunk)
     width: Optional[int] = None       # override adjacency tile width
-
-    # memory
-    table_budget: int = 6 << 30       # padded adjacency table ceiling (bytes)
 
     # distribution
     mesh_shape: Optional[Tuple[int, ...]] = None
@@ -43,7 +40,7 @@ class Config:
             v = os.environ.get(prefix + f.name.upper())
             if v is None:
                 continue
-            if f.name in ("chunk", "sub", "width", "dense_core", "table_budget"):
+            if f.name in ("chunk", "sub", "width", "dense_core"):
                 setattr(cfg, f.name, int(v))
             elif f.name in ("bucketed", "mmap", "use_native"):
                 setattr(cfg, f.name, v.lower() in ("1", "true", "yes"))
@@ -53,3 +50,23 @@ class Config:
 
 
 DEFAULT = Config()
+
+# Memory the CPU backend is treated as having when a budget is derived: the
+# 16 GiB the layout budgets were first sized for, so CPU runs (the tests)
+# keep those sizes.
+CPU_DEVICE_BYTES = 16 << 30
+
+
+def device_memory_budget(fraction: float, device=None) -> int:
+    """Bytes a device-resident layout may take: `fraction` of the device's
+    memory limit (memory_stats()["bytes_limit"], what the allocator may
+    hand out), or of CPU_DEVICE_BYTES on the CPU backend. The default
+    device is this process's first: under jax.distributed, jax.devices()
+    also lists other processes' devices, whose memory cannot be read."""
+    import jax
+    d = device if device is not None else jax.local_devices()[0]
+    if d.platform == "cpu":
+        total = CPU_DEVICE_BYTES
+    else:
+        total = d.memory_stats()["bytes_limit"]
+    return int(total * fraction)

@@ -1,4 +1,4 @@
-"""Host-side CSR graph with TPU-oriented preprocessing.
+"""Host-side CSR graph with device-oriented preprocessing.
 
 Parity target: include/graph.h + src/common/graph.cc in the reference — CSR
 storage, DAG orientation (graph.cc:233-279), COO edge-list materialisation

@@ -1,6 +1,6 @@
 """Plan-interpreting frontier engine.
 
-Executes a core.plan.Plan over chunks of edge tasks — the TPU redesign of the
+Executes a core.plan.Plan over chunks of edge tasks — the device redesign of the
 reference's two execution strategies in one engine:
 
 * the generated DFS nested loops (src/*/cpu_kernels/*.h, clique4_warp_edge.cuh)
@@ -18,10 +18,10 @@ slot and contributes exactly 0 everywhere.
 
 Why there is no generic cmap here (design decision, measured): the
 reference's cmap (include/cmap.h) is an O(1) per-candidate membership
-probe. On TPU a per-candidate bitmap probe is a lane-dimension dynamic
-gather (take_along_axis), which Mosaic serializes — measured 54x slower
-than the O(w^2) broadcast compare it would replace (ops/ring.py
-_tail_pairs_partials note). The TPU-correct counterpart is restructuring
+probe. Batched on a device, a per-candidate bitmap probe is a dependent
+dynamic gather (take_along_axis) per candidate, not cheaper than the
+O(w^2) broadcast compare it would replace (ops/ring.py
+_tail_pairs_partials note). The device counterpart is restructuring
 membership into bulk popcount(row AND) over packed core bitmaps, which is
 exactly what the specialized engines do (ops/hubcore, stream, ring,
 cliquek, cliquebig, tri_support); the interpreter keeps the vectorized
@@ -263,7 +263,7 @@ def _count_device_multi(dg: DeviceGraph, src, dst, *, plans, width: int,
                         chunk: int, sub: int, backend: str,
                         wf: Optional[int] = None) -> jax.Array:
     """Evaluate SEVERAL plans over the same edge-task chunks in ONE device
-    program — the TPU analogue of the reference's fused multi-counter motif
+    program — the device analogue of the reference's fused multi-counter motif
     DFS (src/motif/gpu_kernels/ automine_5motif, 21 counters in one kernel).
     Plans sharing a level-2 op signature share the level-2 candidate build
     via XLA common-subexpression elimination; the graph, task list, chunking
@@ -355,7 +355,7 @@ def count_pattern(g, plan: Plan, chunk: int = 2048, sub: Optional[int] = None,
 
     bucketed=True groups edge tasks by the degree class of their endpoints
     and runs one fixed-width variant per class — candidate tiles then track
-    the task's real degrees instead of max_degree (the TPU analogue of the
+    the task's real degrees instead of max_degree (the device analogue of the
     reference's warp/CTA strategy dispatch, common.mk:73-74,100-104 and
     rectangle_nested_balanced.cuh work distribution). Rows of deeper-level
     vertices are still gathered at full width (wf) for exactness. Defaults

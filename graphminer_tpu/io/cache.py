@@ -2,7 +2,7 @@
 
 The reference's .bin graph format doubles as its preprocessing checkpoint
 (src/common/graph.cc:4-124; README.md:83-103 — converted graphs are written
-once and reloaded mmap-fast forever). TPU equivalent: relabeled/oriented
+once and reloaded mmap-fast forever). Here: relabeled/oriented
 CSR graphs (and any numpy-array bundle) are cached as .npz keyed by content
 parameters, so a second run skips the host preprocessing entirely; XLA
 executables are cached separately via jax's persistent compilation cache
@@ -15,9 +15,11 @@ from typing import Optional
 
 import numpy as np
 
+_CHECKOUT = os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                         "..", ".."))
 DEFAULT_DIR = os.environ.get("GRAPHMINER_CACHE",
-                             os.path.join(os.path.dirname(__file__),
-                                          "..", "..", "graph_cache"))
+                             os.path.join(_CHECKOUT, "graph_cache"))
+CHECKOUT_JAX_CACHE = os.path.join(_CHECKOUT, ".jax_cache")
 
 
 def _path(key: str, cache_dir: Optional[str] = None) -> str:
@@ -66,10 +68,14 @@ def cached_graph(key: str, build, cache_dir: Optional[str] = None):
     return g
 
 
-def enable_compile_cache(path: Optional[str] = None) -> None:
-    """Persistent XLA-executable cache — kills the per-run recompile cost
-    (the reference has no JIT; its 'compile once' is the C++ build)."""
+def enable_compile_cache() -> None:
+    """Persistent XLA-executable cache, so a second process skips the
+    compiles of the first (the reference has no JIT; its 'compile once' is
+    the C++ build). Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it
+    itself and nothing is set here; otherwise executables go to
+    <checkout>/.jax_cache."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
     import jax
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        path or os.path.abspath(os.path.join(DEFAULT_DIR, "..", ".jax_cache")))
+    jax.config.update("jax_compilation_cache_dir", CHECKOUT_JAX_CACHE)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

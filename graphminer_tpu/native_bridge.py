@@ -1,9 +1,11 @@
 """ctypes bridge to the native C++ preprocessing library (native/graphcore.cpp).
 
-Builds lazily on first use (g++ -O3 -fopenmp); every entry point has a numpy
-fallback in core/graph.py, so the package works without a toolchain. The
-native path matters for big graphs: orientation/relabel of a 100M-edge graph
-is seconds in parallel C++ vs minutes in numpy.
+The library is built from source on first use in each process: `make` in
+native/ compiles it for the host it runs on (-march=native), and rebuilds
+it whenever graphcore.cpp is newer than the library. Every entry point has
+a numpy fallback in core/graph.py, so the package works without a
+toolchain. The native path matters for big graphs: orientation/relabel of a
+100M-edge graph is seconds in parallel C++ vs minutes in numpy.
 """
 from __future__ import annotations
 
@@ -11,41 +13,58 @@ import ctypes
 import os
 import subprocess
 import threading
+from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libgraphcore.so")
+LIB_NAME = "libgraphcore.so"
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_error = None     # why the library is unavailable, once get_lib() gave up
 
 
-def _build() -> bool:
+class NativeBuildError(RuntimeError):
+    pass
+
+
+def build(native_dir: str = NATIVE_DIR) -> str:
+    """Run `make` in native_dir, which compiles graphcore.cpp into
+    LIB_NAME when the library is absent or older than its source. Returns
+    the library's path; raises NativeBuildError with make's output when
+    the build fails (no toolchain, a compile error)."""
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
-        return True
-    except Exception:
-        return False
+        subprocess.run(["make", "-s", "-C", native_dir], check=True,
+                       capture_output=True, text=True, timeout=300)
+    except subprocess.CalledProcessError as e:
+        raise NativeBuildError((e.stdout + e.stderr)[-2000:]) from e
+    except (OSError, subprocess.SubprocessError) as e:
+        raise NativeBuildError(str(e)) from e
+    return os.path.join(native_dir, LIB_NAME)
+
+
+def unavailable_reason() -> Optional[str]:
+    """Why get_lib() returned None (build or load error), else None."""
+    return _error
 
 
 def get_lib():
     """The loaded library or None (numpy fallback)."""
-    global _lib, _tried
+    global _lib, _tried, _error
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
         if os.environ.get("GRAPHMINER_NO_NATIVE"):
-            return None
-        if not os.path.exists(_LIB_PATH) and not _build():
+            _error = "GRAPHMINER_NO_NATIVE is set"
             return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+            lib = ctypes.CDLL(build())
+        except (NativeBuildError, OSError) as e:
+            _error = f"{type(e).__name__}: {e}"
             return None
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

@@ -1,10 +1,10 @@
-"""Dense-core MXU counting path.
+"""Dense-core matmul counting path.
 
 Parity/inspiration: the reference's matrix-multiply-based GPM subsystem
 (src/matrix/omp_mm.cpp:104-215): split the graph by degree, count patterns in
 the dense high-degree core with GEMM (A@A ⊙ A), handle the sparse tail with
-ordinary intersections. On TPU this is the headline path — the MXU does
-0/1-matrix products at ~100× the VPU's compare rate, and with an
+ordinary intersections. Matrix units run 0/1 products far faster than
+elementwise compares, and with an
 ascending-degree relabel + orientation the core is CLOSED (out-neighbors of
 core vertices are core vertices), so core-core edges are counted entirely
 inside the dense block with no correction terms.
@@ -43,7 +43,7 @@ def core_triangles(dag, core_start: int) -> int:
     degree relabel, so edges point to higher ids and N⁺(core) ⊆ core."""
     v = dag.n_vertices
     c = v - core_start
-    # pad C to a lane multiple for the MXU
+    # pad C to a power of two for the matmul tiles
     cpad = max(256, 1 << int(np.ceil(np.log2(c))))
     deg = np.diff(dag.rowptr)
     src = np.repeat(np.arange(v, dtype=np.int64), deg)

@@ -12,20 +12,21 @@ over all edges collapses to a pure tri_e expression, giving
 where tri_e = |N(u) ∩ N(v)| (triangle support — ops/tri_support.py) and
 T3_e = Σ_{x∈N(u), y∈N(v)} A[x, y] = (A³)_uv, the 3-walk support.
 
-TPU decomposition of T3 by the classes of the mid-edge (x, y) over the
+Device decomposition of T3 by the classes of the mid-edge (x, y) over the
 degree-ascending relabel with core = top `core` ids:
 
- * x, y both core:  fb(u)ᵀ · Acc · fb(v)     — per-edge MXU bilinear
+ * x, y both core:  fb(u)ᵀ · Acc · fb(v)     — per-edge matmul bilinear
  * x core, y sub:   ⟨fb(u), WS[v]⟩            — WS[v][c] = #{y ∈ N(v)∩sub:
  * x sub, y core:   ⟨fb(v), WS[u]⟩              c ∈ N(y)} (precomputed
                                                 [V, core] int16 table)
  * x, y both sub:   native OpenMP pass (gm_t3ss) — bounded by the
                     sub-core degree cap, O(Σ_{x sub} deg·ssdeg) build +
                     L2-resident lookups (the wedge-explosion hub terms
-                    all live in the core classes above, on the MXU).
+                    all live in the core classes above, as matmuls).
 
 The per-edge combine runs in int64 numpy on the host (T3 < 2^31 asserted
-via the codegree bound; bilinear/dot partials are f32-exact < 2^24).
+via the codegree bound). The bilinear is an f32-exact integer (its bound,
+≤ 2^24, is asserted on the host); the WS dots are summed in int32.
 """
 from __future__ import annotations
 
@@ -65,9 +66,12 @@ def _ws_bucket(table, ft, *, words: int, wa: int, chunk: int):
 def _t3_edges(table, ws_tab, acc_exp, src, dst, *, words: int, chunk: int):
     """Per-edge core-mid T3 share: bilinear + WS dots → int32 [n].
 
-    Exact in f32: the bilinear inner entries are <= core (< 2^24) and the
-    per-edge totals <= core² + 2·core·max_ftw < 2^24·8 — summed as f32
-    per term then int32; each term bound asserted by the caller."""
+    The bilinear fb(u)ᵀ·Acc·fb(v) has 0/1 bf16 operands and f32
+    accumulation: each inner entry is <= core and the per-edge total is
+    <= cn(u)·cn(v) (core-neighbour counts), so it is an f32-exact integer
+    while that product is <= 2^24, which the caller asserts. The WS dots
+    (up to 2·core·max_ftw ~ 2^28) are masked int16 entries summed in
+    int32, exact in any summation order."""
     cpad = words * 32
     v = table.shape[0]
     ss = src.reshape(-1, chunk)
@@ -83,13 +87,10 @@ def _t3_edges(table, ws_tab, acc_exp, src, dst, *, words: int, chunk: int):
         t = jax.lax.dot_general(xu, acc_exp, (((1,), (0,)), ((), ())),
                                 preferred_element_type=jnp.float32)
         bil = jnp.sum(t * xv.astype(jnp.float32), axis=1)
-        wsv = ws_tab[dv].astype(jnp.float32)
-        wsu = ws_tab[su].astype(jnp.float32)
-        dots = jnp.sum(xu.astype(jnp.float32) * wsv
-                       + xv.astype(jnp.float32) * wsu, axis=1)
-        # cast each f32-exact term (<= 2^24) separately; the SUM can
-        # exceed 2^24, so add in int32
-        return bil.astype(jnp.int32) + dots.astype(jnp.int32)
+        wsv = jnp.where(xu > 0, ws_tab[dv].astype(jnp.int32), 0)
+        wsu = jnp.where(xv > 0, ws_tab[su].astype(jnp.int32), 0)
+        dots = jnp.sum(wsv + wsu, axis=1, dtype=jnp.int32)
+        return bil.astype(jnp.int32) + dots
 
     return jax.lax.map(body, (ss, dd)).reshape(-1)
 
@@ -159,6 +160,9 @@ def edge_t3(g, core: int = CORE, chunk: int = EDGE_CHUNK):
                 rows[: ids.shape[0]])
 
     src, dst = _dag_edges(rg)
+    # f32 exactness of the per-edge bilinear (see _t3_edges)
+    assert int((core_nb[src] * core_nb[dst]).max(initial=0)) <= (1 << 24), \
+        "core too large for the f32-exact bilinear"
     n = src.shape[0]
     npad = round_up(max(n, chunk), chunk)
     sp = np.full(npad, SENTINEL, dtype=np.int32)

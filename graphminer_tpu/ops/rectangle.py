@@ -6,7 +6,7 @@ v2 < v1 its two neighbors, v3 ∈ N(v1) ∩ N(v2) bounded below v0 — each
 src/sgl/README.md:58 (livej 4-cycles = 51,520,572,777) served by the
 rectangle_bj / rectangle_nested_balanced GPU kernels.
 
-TPU reformulation — no wedge enumeration. A 4-cycle u-x-v-y has two
+Device reformulation — no wedge enumeration. A 4-cycle u-x-v-y has two
 diagonal pairs {u, v} and {x, y}; anchor each cycle at the diagonal pair
 containing its MAXIMUM vertex v (ids ascend by degree after relabel):
 
@@ -15,20 +15,20 @@ containing its MAXIMUM vertex v (ids ascend by degree after relabel):
 Every cycle is counted exactly once: both cross vertices x, y lie below v,
 and at the other diagonal {x, y} the pair {u, v} fails the bound (v is not
 below max(x, y)). With the top `core` ids closed under "max of the cycle",
-the truncated codegree splits into MXU-shaped pieces:
+the truncated codegree splits into matmul-shaped pieces:
 
  * u, v both core:  w = Gs[u, v] + Wb[v, u] where
-     Gs = Σ_{x sub} fb(x) fb(x)ᵀ             (sub common nbrs — MXU Gram)
-     Wb = (Acc ⊙ 1[x < v])ᵀ Acc              (core commons below v — MXU)
+     Gs = Σ_{x sub} fb(x) fb(x)ᵀ             (sub common nbrs — matmul Gram)
+     Wb = (Acc ⊙ 1[x < v])ᵀ Acc              (core commons below v — matmul)
  * u sub, v core:   w[v] = wsub_u[v] + wcb_u[v] where
      wsub_u = Σ_{x ∈ N(u) ∩ sub} fb(x)       (bucketed gather + bit sums)
-     wcb_u  = expand(fb(u)) @ (Acc ⊙ 1[x < v])  (batched MXU matvec)
+     wcb_u  = expand(fb(u)) @ (Acc ⊙ 1[x < v])  (batched matmul)
  * v sub (⇒ all four vertices sub): recurse on the sub-induced graph.
 
 fb(x) = bitmap of N(x) ∩ core over FULL adjacency; Acc = core-core
 adjacency. Cost is O(V · core²) MACs + O(E_sub · core) bit-sums per level —
 no term is wedge-proportional (rmat18 has 4.7e9 wedges; this engine does
-~1e13 MACs, seconds on the MXU).
+~1e13 MACs, all in dense matrix products).
 
 Exactness: all per-entry values are int32 (codegree < 2^16 asserted, so
 w(w-1)/2 < 2^31); block sums are split lo/hi-16 int32 partials (block
@@ -228,7 +228,7 @@ def rectangle_count_fast(g, core: int = CORE, chunk: int = CHUNK_U,
                          _depth: int = 0) -> int:
     """Exact 4-cycle count via the max-anchored hybrid engine.
 
-    Level 0 runs the MXU decomposition (the hub mass); recursion levels
+    Level 0 runs the matmul decomposition (the hub mass); recursion levels
     have degree capped by the parent's core threshold, so once the wedge
     count is bounded the native anchor pass closes exactly (the recursion
     would otherwise peel only `core` ids per level)."""

@@ -3,7 +3,7 @@
 Parity: include/graph_partition.h + src/common/graph_partition.cc —
 1D edge-cut partitioning, vertex-induced partitions with halo (masks = owned
 vertices + their neighbors, re-indexed local CSR, :24-160), CSR segmenting
-(cache blocking, :44-48 citing Zhang et al. 2017). TPU use: per-host
+(cache blocking, :44-48 citing Zhang et al. 2017). Device use: per-host
 subgraphs whose local counts psum to the exact global count; the halo makes
 replication unnecessary for edge-parallel counting — each partition owns a
 contiguous vertex range's edges plus the adjacency closure needed to complete

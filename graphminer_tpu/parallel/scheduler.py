@@ -3,7 +3,7 @@
 Parity: include/scheduler.h + src/common/scheduler.cc — round_robin
 (chunk-cyclic, :34-85), vertex_chunking (owner = (v/stride)%n, :100-130),
 least_first (greedy bin-packing by min(deg(src),deg(dst)) estimate,
-:133-214). On TPU these produce per-device index assignments consumed by
+:133-214). On the devices these produce per-device index assignments consumed by
 shard_map; round-robin chunking is the default (deterministic and
 contiguous-chunk friendly), least_first is useful when the task list is not
 degree-sorted.

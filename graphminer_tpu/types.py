@@ -1,11 +1,11 @@
-"""Fixed-width ID types and global constants for the TPU GPM framework.
+"""Fixed-width ID types and global constants for the GPM framework.
 
 Parity target: include/common.h:29-61 and include/defines.h in the reference
 (vidType=int32, eidType=int64, vlabel_t=u8, elabel_t=u16, AccType=u64).
 
-On the TPU device side we use int32 everywhere (int64 is emulated and slow on
-TPU); 64-bit accumulation happens on the host or in partitioned int32 blocks
-that are promoted after reduction.
+On the device side we use int32 everywhere (half the bytes of int64 on a
+memory-bound path); 64-bit accumulation happens on the host or in
+partitioned int32 blocks that are promoted after reduction.
 """
 from __future__ import annotations
 
@@ -21,14 +21,14 @@ ACC_DTYPE = np.uint64     # global accumulator   (AccType)
 # Device-side dtypes.
 DEV_VID = np.int32
 DEV_EID = np.int32        # device row offsets; graphs with E >= 2^31 must be partitioned
-DEV_ACC = np.int64        # XLA on CPU supports int64; on TPU x64 is disabled by
-                          # default so device partial counts use int32 blocks.
+DEV_ACC = np.int64        # final reductions; device partial counts use int32
+                          # blocks.
 
 # Sentinel for padded adjacency slots: larger than any valid vertex id, so a
 # padded slot never matches a real vertex and never passes an upper-bound test.
 SENTINEL = np.int32(np.iinfo(np.int32).max)
 
-# TPU lane width; padded widths are rounded up to a multiple of this when it
+# Tile width; padded widths are rounded up to a multiple of this when it
 # pays off (small widths stay exact to avoid wasted compare lanes).
 LANE = 128
 SUBLANE = 8

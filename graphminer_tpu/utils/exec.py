@@ -1,7 +1,7 @@
 """Chunked task-list execution.
 
 The reference streams work as warp-strided loops over a COO edge list
-(e.g. clique4_warp_edge.cuh:14). The TPU analogue: pad the task list to a
+(e.g. clique4_warp_edge.cuh:14). The device analogue: pad the task list to a
 multiple of a static chunk size and `lax.map` a jitted chunk-kernel over the
 fixed-shape chunks — memory use is bounded by one chunk regardless of E, and
 XLA compiles the body once. Chunks are the natural unit for restart and for

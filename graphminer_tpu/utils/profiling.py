@@ -3,7 +3,7 @@
 Parity: include/timer.h (Timer + TIME_OP), the per-phase timer arrays
 (fsm/omp_base.cc timers[0..5]), and the per-set-op accumulated counters
 (common.h:72-74 time_ops[OP_INTERSECT/...], intersect.cc galloping/merge call
-counters). TPU additions: a jax.profiler trace context for XLA-level traces.
+counters). Device additions: a jax.profiler trace context for XLA-level traces.
 """
 from __future__ import annotations
 

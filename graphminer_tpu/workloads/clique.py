@@ -1,7 +1,7 @@
 """k-clique counting (k-CL).
 
 Parity: src/clique/ — automine_omp.h:2-183 (DAG nested DFS) and
-clique{4,5}_warp_edge.cuh GPU kernels. TPU: clique_plan(k) interpreted by the
+clique{4,5}_warp_edge.cuh GPU kernels. Device: clique_plan(k) interpreted by the
 frontier engine over the oriented DAG.
 """
 from __future__ import annotations
@@ -14,7 +14,7 @@ def clique_count(g, k: int, chunk: int = 1024, backend: str = "auto",
                  fast: bool = False) -> int:
     """Exact k-clique count.
 
-    fast=True routes k=4,5 through the hi/lo-split MXU clique engine
+    fast=True routes k=4,5 through the hi/lo-split matmul clique engine
     (ops/cliquek.py — the clique4/5_warp_edge.cuh analogue), k>=6 through
     the streamed recursive hi/lo engine (ops/cliquebig.py — the OSDI
     Fig-11 large-clique path), and k=3 through the stream engine; plain

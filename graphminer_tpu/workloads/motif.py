@@ -3,7 +3,7 @@
 Parity: src/motif/ in the reference — the *formula* backend
 (omp_formula.cc:39-47, cmap_formula.h): enumerate only the expensive patterns
 (triangles per edge, 4-cliques, 4-cycles), derive the rest arithmetically by
-inclusion–exclusion over non-induced counts. This maps perfectly onto TPU:
+inclusion–exclusion over non-induced counts. This maps perfectly onto an accelerator:
 two frontier-engine enumerations + batched per-edge intersect counts + dense
 degree arithmetic, instead of 6 nested-loop passes.
 
@@ -59,7 +59,7 @@ def motif4_count(g, chunk: int = 2048, fast: bool = False) -> Dict[str, int]:
 
     fast=True rides the fast engines for the expensive terms: tri_e from
     the hi/lo-core tri-support pass (ops/tri_support.py) and K4 from the
-    hi/lo MXU clique engine (ops/cliquek.py). All degree/tri formulas are
+    hi/lo matmul clique engine (ops/cliquek.py). All degree/tri formulas are
     relabel-invariant, so they are evaluated in tri_support's
     degree-ascending id space (d = sorted degrees)."""
     if fast:

@@ -6,7 +6,7 @@ NLF + k-core + reverse label index (Filter::{computeCandidateWithNLF,
 pruneCandidates}, filter.h:5-53 / filter.cc), and per-level set-op programs
 executed by a DFS (omp_base.cc:10-125).
 
-TPU redesign: the filter runs on the host (vectorized numpy over dense
+Device redesign: the filter runs on the host (vectorized numpy over dense
 [V, n_labels] NLF tables — the data-graph label machinery of
 graph.cc:566-729), producing a [k, V] candidate bitmap. The query pattern is
 compiled by plan_from_pattern(labeled=True) into a Plan whose levels carry

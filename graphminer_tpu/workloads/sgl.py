@@ -1,7 +1,7 @@
 """Subgraph listing / counting (SgL).
 
 Parity: src/sgl/ — pattern dispatched by name (omp_base.cc:16-52) to generated
-kernels (cpu_kernels/{diamond,rectangle,house,pentagon}.h …). TPU: named plans
+kernels (cpu_kernels/{diamond,rectangle,house,pentagon}.h …). Device: named plans
 from core.plan interpreted by the frontier engine.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Parity: src/triangle/ in the reference — omp_base.cc:5-27 (vertex-parallel
 Σ|N(u)∩N(v)| over the DAG) and bs_warp_edge.cuh:1-19 (edge-parallel warp
-kernel). TPU redesign: orient once on host, materialize the COO task list,
+kernel). Device redesign: orient once on host, materialize the COO task list,
 then a chunked edge-parallel batched intersect-count on device.
 """
 from __future__ import annotations
@@ -41,7 +41,7 @@ def triangle_count(g, chunk: int = 16384, backend: str = "auto",
     """Exact triangle count of an undirected graph (HostGraph).
 
     bucketed=True partitions edges by endpoint degree class and runs one
-    fixed-width kernel per class pair (the TPU analogue of the reference's
+    fixed-width kernel per class pair (the device analogue of the reference's
     warp/CTA strategy dispatch) — the default; exactness is unaffected."""
     if not g.is_dag:
         g = g.orientation()
@@ -66,7 +66,7 @@ def triangle_count(g, chunk: int = 16384, backend: str = "auto",
 
 
 def triangle_count_fast(g, **kw) -> int:
-    """Hub-bitmap + closed-core MXU engine — the fast TC path on TPU
+    """Hub-bitmap + closed-core matmul engine — a fast TC path
     (ops/hubcore.py). ~5-10x the bucketed-intersect path on power-law
     graphs; exact."""
     from ..ops.hubcore import triangle_count_fast as _fast
@@ -75,12 +75,12 @@ def triangle_count_fast(g, **kw) -> int:
 
 def triangle_count_hybrid(g, core_size: int = 16384, chunk: int = 16384,
                           backend: str = "auto") -> int:
-    """Hybrid MXU/VPU exact triangle count (the TPU-first realisation of the
+    """Hybrid matmul/elementwise exact triangle count (the device realisation of the
     reference's matrix/ GEMM+intersection split, omp_mm.cpp:104-215).
 
     Ascending-degree relabel → orientation points to higher ids → the
     high-degree core [V-C, V) is closed under out-neighbors, so core-core
-    edges are counted entirely on the MXU (ops/dense_core.py); edges with a
+    edges are counted entirely by matmuls (ops/dense_core.py); edges with a
     tail endpoint go through the bucketed intersect path with small widths."""
     from ..ops.dense_core import core_triangles
     from ..utils.bucketing import bucket_edge_tasks, pick_chunk

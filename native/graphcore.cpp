@@ -1,6 +1,6 @@
 // Native graph-preprocessing core (C++17 + OpenMP).
 //
-// TPU-side compute lives in XLA/Pallas; this library is the host runtime's
+// Device-side compute lives in XLA; this library is the host runtime's
 // native half — the counterpart of the reference's C++ graph machinery
 // (src/common/graph.cc: orientation :233-279, sort :138-146, edge list
 // :297-326; include/scan.h parallel_prefix_sum). It handles the
@@ -378,7 +378,7 @@ void gm_count_multi(i64 n_tasks, i64 words, i64 n_bits, i64 n_src,
 // For every DAG edge (u, v) with v > u (CSR entries where col > row),
 // out[csr_pos] = #{(x, y): x in N(u), y in N(v), x ~ y, x < cs, y < cs}
 // — the (sub, sub) middle-edge share of T3(u,v) = |edges between N(u)
-// and N(v)| (ordered sides). The core-mid shares run on the TPU (MXU
+// and N(v)| (ordered sides). The core-mid shares run on the device (matmul
 // bilinear + WS-table dots, ops/house.py); this bounded part costs
 // O(sum_{x sub} deg(x) * ssdeg(x)) build + O(sum_v deg(v) * ftw(v))
 // L2-resident lookups. Entries at col <= row are left untouched.
@@ -430,7 +430,7 @@ void gm_t3ss(i64 V, const i64* rowptr, const i32* colidx, i64 cs,
 // Max-anchored 4-cycle count (the Chiba–Nishizeki wedge pass; ids ARE the
 // anchor order). total = Σ_v Σ_{w<v} C(cnt, 2) with cnt = #{u ∈ N(v) ∩
 // N(w): u < v} — each 4-cycle counted once at the diagonal holding its
-// max vertex (the same anchoring as ops/rectangle.py's MXU form). Used as
+// max vertex (the same anchoring as ops/rectangle.py's matmul form). Used as
 // the bounded-degree closer of the recursion: work = Σ wedges with both
 // legs below the anchor ≈ wedges/2 — affordable exactly where the core
 // split has peeled the hubs away. Rows must be sorted ascending.
@@ -501,7 +501,7 @@ i64 dfs_kclique(const i64* rowptr, const i32* colidx, const i32* cand,
 // Reference-style DAG DFS k-clique counter (the automine_omp.h:159-183
 // nested-loop semantics with sorted-merge intersections) — an INDEPENDENT
 // conformance backend for the bitmap/bilinear engines: different
-// algorithm family (per-vertex DFS + 2-pointer merges vs hi/lo MXU
+// algorithm family (per-vertex DFS + 2-pointer merges vs hi/lo matmul
 // bilinears + popcount streams), shares no code with them. Input must be
 // the oriented DAG with sorted rows.
 i64 gm_kclique(i64 V, const i64* rowptr, const i32* colidx, i64 k) {

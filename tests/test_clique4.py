@@ -7,9 +7,9 @@ from graphminer_tpu.ops.clique4 import clique4_count_fast, Clique4Engine
 
 
 @pytest.fixture(scope="module")
-def citeseer():
+def citeseer(citeseer_path):
     from graphminer_tpu import load_graph
-    return load_graph("/root/reference/inputs/citeseer/graph")
+    return load_graph(citeseer_path)
 
 
 def test_clique4_citeseer_golden(citeseer):

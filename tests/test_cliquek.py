@@ -1,4 +1,4 @@
-"""CliqueKEngine (ops/cliquek.py): hi/lo MXU k-clique vs frontier oracles
+"""CliqueKEngine (ops/cliquek.py): hi/lo matmul k-clique vs frontier oracles
 and the citeseer golden (src/clique/README.md:53-55)."""
 import numpy as np
 import pytest
@@ -8,9 +8,9 @@ from graphminer_tpu.ops.cliquek import CliqueKEngine, cliquek_count_fast
 
 
 @pytest.fixture(scope="module")
-def citeseer():
+def citeseer(citeseer_path):
     from graphminer_tpu import load_graph
-    return load_graph("/root/reference/inputs/citeseer/graph")
+    return load_graph(citeseer_path)
 
 
 def _frontier(g, k):

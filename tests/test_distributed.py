@@ -2,11 +2,9 @@
 
 The 2-process test is the reference's `mpirun -np 2` smoke (SURVEY §4.6) as
 jax.distributed over CPU: two spawned processes, each counting its own
-induced halo partition, allgather-summed to the exact golden count.
+induced halo partition, allgather-summed to the single-process count.
 """
 import os
-import socket
-import subprocess
 import sys
 import textwrap
 
@@ -14,7 +12,8 @@ import pytest
 
 from graphminer_tpu.core.plan import TRIANGLE, DIAMOND, RECTANGLE, clique_plan
 from graphminer_tpu.parallel.distributed import (count_pattern_partitioned,
-                                                 plan_halo_hops)
+                                                 launch_local, plan_halo_hops,
+                                                 sum_over_processes)
 from graphminer_tpu.io.synth import rmat
 
 
@@ -29,9 +28,9 @@ def test_plan_halo_hops():
 
 
 @pytest.fixture(scope="module")
-def citeseer():
+def citeseer(citeseer_path):
     from graphminer_tpu import load_graph
-    return load_graph("/root/reference/inputs/citeseer/graph")
+    return load_graph(citeseer_path)
 
 
 def test_partitioned_triangles(citeseer):
@@ -59,58 +58,79 @@ _WORKER = textwrap.dedent("""
     import sys
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from graphminer_tpu import load_graph
     from graphminer_tpu.core.plan import TRIANGLE
+    from graphminer_tpu.io.synth import rmat
     from graphminer_tpu.parallel.distributed import (init_distributed,
                                                      count_pattern_multiprocess)
     from graphminer_tpu.parallel.partition import induced_partition_1d
+    from graphminer_tpu.workloads.triangle import triangle_count
     coord, nproc, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
     init_distributed(coordinator=coord, num_processes=nproc, process_id=pid)
-    g = load_graph("/root/reference/inputs/citeseer/graph")
+    g = rmat(10, 8, seed=7)
     gd = g.orientation()
     part = induced_partition_1d(gd, nproc, hops=1)[pid]
     print(f"STATS pid={pid} owned={part.n_owned} "
           f"local_edges={part.graph.n_edges}", flush=True)
     total = count_pattern_multiprocess(g, TRIANGLE)
-    print(f"TOTAL={total}", flush=True)
-    assert total == 1166, total
+    want = triangle_count(g)
+    print(f"TOTAL={total} WANT={want}", flush=True)
+    assert total == want, (total, want)
 """)
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    p = s.getsockname()[1]
-    s.close()
-    return p
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run_procs(tmp_path, nproc, timeout=220):
     script = tmp_path / "worker.py"
     script.write_text(_WORKER)
-    coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)  # no virtual-device forcing in workers
-    env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), coord, str(nproc), str(i)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        cwd="/root/repo", env=env, text=True) for i in range(nproc)]
+    env["PYTHONPATH"] = _CHECKOUT + os.pathsep + env.get("PYTHONPATH", "")
+    results = launch_local([sys.executable, str(script)], nproc, timeout,
+                           env=env, cwd=_CHECKOUT)
     outs = []
-    for p in procs:
-        out, _ = p.communicate(timeout=timeout)
+    for r in results:
+        out = r.stdout + r.stderr
+        assert r.returncode == 0, f"proc {r.rank} failed:\n{out[-2000:]}"
+        assert "TOTAL=" in out, out[-2000:]
+        assert f"STATS pid={r.rank} " in out, out[-2000:]
         outs.append(out)
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"proc {i} failed:\n{out[-2000:]}"
-        assert "TOTAL=1166" in out, out[-2000:]
-        assert f"STATS pid={i} " in out, out[-2000:]
     return outs
+
+
+def test_sum_over_processes_single():
+    # one process: the sum is the value itself, with no coordination service
+    assert sum_over_processes(5_000_000_000) == 5_000_000_000
+
+
+def test_launch_local_stops_ranks(tmp_path):
+    """A rank that fails stops the others; the deadline stops a rank that
+    hangs. Exit codes and output come back per rank."""
+    script = tmp_path / "rank.py"
+    script.write_text(textwrap.dedent("""
+        import sys, time
+        coord, nproc, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+        print(f"rank {rank} of {nproc} at {coord}", flush=True)
+        if rank == 1:
+            sys.exit(3)
+        time.sleep(60)
+    """))
+    res = launch_local([sys.executable, str(script)], 3, timeout_s=30)
+    assert [r.rank for r in res] == [0, 1, 2]
+    assert res[1].returncode == 3
+    assert res[0].returncode < 0 and res[2].returncode < 0
+    assert all(r.stdout.startswith(f"rank {r.rank} of 3 at 127.0.0.1:")
+               for r in res)
+    res = launch_local([sys.executable, "-c",
+                        "import time; time.sleep(60)"], 1, timeout_s=1)
+    assert res[0].returncode < 0
 
 
 @pytest.mark.timeout(240)
 def test_two_process_allreduce(tmp_path):
-    """jax.distributed 2-process CPU run matching the citeseer golden —
-    the `mpirun -np 2 tc_dist_cpu` equivalence."""
+    """jax.distributed 2-process CPU run matching the single-process
+    count — the `mpirun -np 2 tc_dist_cpu` equivalence."""
     _run_procs(tmp_path, 2)
 
 
@@ -118,8 +138,31 @@ def test_two_process_allreduce(tmp_path):
 def test_four_process_allreduce(tmp_path):
     """4-process spawn (the north-star's 4-way multi-host shape): each
     rank prints its partition stats (owned vertices, halo-local edges) and
-    the allgather-summed global count must be the exact golden."""
+    the allgather-summed global count must equal the single-process
+    count."""
     outs = _run_procs(tmp_path, 4, timeout=400)
     stats = [l for out in outs for l in out.splitlines()
              if l.startswith("STATS")]
     assert len(stats) == 4
+
+
+def test_memory_budget_reads_own_device(monkeypatch):
+    """Under jax.distributed, jax.devices()[0] may belong to another process,
+    whose memory_stats() raises; the budget reads this process's device."""
+    import jax
+    from graphminer_tpu.config import device_memory_budget
+
+    class Dev:
+        platform = "gpu"
+
+        def __init__(self, limit):
+            self.limit = limit
+
+        def memory_stats(self):
+            if self.limit is None:
+                raise RuntimeError("not addressable")
+            return {"bytes_limit": self.limit}
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [Dev(None), Dev(8 << 30)])
+    monkeypatch.setattr(jax, "local_devices", lambda *a: [Dev(8 << 30)])
+    assert device_memory_budget(0.5) == 4 << 30

@@ -36,6 +36,31 @@ def test_t3_vs_dense(n, p, seed, core):
     assert np.array_equal(t3, a3[src, dst])
 
 
+def test_t3_edge_sum_exact_past_2_24():
+    """The per-edge WS dots sum past 2^24 (where f32 stops holding odd
+    integers) and must stay exact: all core bits set on both endpoints,
+    ws entries near the int16 top, an odd total above 2^24."""
+    import jax.numpy as jnp
+    from graphminer_tpu.ops.house import _t3_edges
+    from graphminer_tpu.types import SENTINEL
+    words, chunk = 16, 8
+    cpad = words * 32
+    table = jnp.full((2, words), -1, jnp.int32)      # every core bit set
+    ws = np.full((2, cpad), 32767, np.int16)
+    ws[1, 7] = 32766
+    acc = jnp.zeros((cpad, cpad), jnp.bfloat16)       # bilinear share 0
+    src = np.full(chunk, SENTINEL, np.int32)
+    dst = np.full(chunk, SENTINEL, np.int32)
+    src[0], dst[0] = 0, 1
+    got = np.asarray(_t3_edges(table, jnp.asarray(ws), acc,
+                               jnp.asarray(src), jnp.asarray(dst),
+                               words=words, chunk=chunk))
+    want = int(ws.astype(np.int64).sum())
+    assert want > (1 << 24) and want % 2 == 1
+    assert int(got[0]) == want
+    assert not got[1:].any()
+
+
 def test_t3ss_native_vs_numpy():
     """The native gm_t3ss pass must match the dense numpy share."""
     from graphminer_tpu import native_bridge

@@ -1,4 +1,4 @@
-"""Hub-bitmap + closed-core MXU engine (ops/hubcore.py) conformance.
+"""Hub-bitmap + closed-core matmul engine (ops/hubcore.py) conformance.
 
 Golden counts: src/triangle/README.md:53 (citeseer = 1,166); synthetic
 graphs are cross-checked against the independent bucketed-intersect path
@@ -13,17 +13,14 @@ from graphminer_tpu.io.synth import rmat, erdos_renyi
 from graphminer_tpu.ops import hubcore
 from graphminer_tpu.workloads.triangle import triangle_count
 
-CITESEER = "/root/reference/inputs/citeseer/graph"
-
-
-def test_citeseer_golden():
-    g = load_graph(CITESEER)
+def test_citeseer_golden(citeseer_path):
+    g = load_graph(citeseer_path)
     assert hubcore.triangle_count_fast(g) == 1166
 
 
 @pytest.mark.parametrize("core", [64, 512, 100000])
-def test_citeseer_core_sizes(core):
-    g = load_graph(CITESEER)
+def test_citeseer_core_sizes(citeseer_path, core):
+    g = load_graph(citeseer_path)
     assert hubcore.triangle_count_fast(g, core=core) == 1166
 
 

@@ -8,9 +8,9 @@ from graphminer_tpu.ops.hybrid import HybridEngine, triangle_count_hybrid_tier
 
 
 @pytest.fixture(scope="module")
-def citeseer():
+def citeseer(citeseer_path):
     from graphminer_tpu import load_graph
-    return load_graph("/root/reference/inputs/citeseer/graph")
+    return load_graph(citeseer_path)
 
 
 def test_hybrid_citeseer_golden(citeseer):
@@ -21,7 +21,7 @@ def test_hybrid_citeseer_golden(citeseer):
 def test_hybrid_vs_ring_rmat14():
     g = rmat(14, 8, seed=11)
     from graphminer_tpu.ops.ring import triangle_count_ring
-    want = triangle_count_ring(g, use_pallas=False)
+    want = triangle_count_ring(g)
     eng = HybridEngine(g)
     assert eng.count() == want
     # the split covers every DAG edge exactly once

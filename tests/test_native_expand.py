@@ -9,10 +9,12 @@ import pytest
 from graphminer_tpu import native_bridge
 
 
-pytestmark = pytest.mark.skipif(
-    native_bridge.get_lib() is None
-    or not hasattr(native_bridge.get_lib(), "gm_expand_emit"),
-    reason="native lib unavailable")
+@pytest.fixture(autouse=True)
+def _native_lib():
+    # decided per test, not at import: the first get_lib() may build it
+    lib = native_bridge.get_lib()
+    if lib is None or not hasattr(lib, "gm_expand_emit"):
+        pytest.skip("native lib unavailable")
 
 
 def _numpy_ref(bases, rows, n_bits):

@@ -8,8 +8,6 @@ from graphminer_tpu.workloads.query import (query_count, make_query,
                                             gql_candidates)
 import oracle
 
-CITESEER = "/root/reference/inputs/citeseer/graph"
-
 
 def test_nlf():
     g = labeled_er(30, 0.2, n_vlabels=3, seed=2)
@@ -63,8 +61,8 @@ def test_filter_prunes():
     assert np.all(label_only | ~cand)  # cand ⊆ label-matching vertices
 
 
-def test_citeseer_labeled_query():
-    g = load_graph(CITESEER, use_vlabel=True)
+def test_citeseer_labeled_query(citeseer_path):
+    g = load_graph(citeseer_path, use_vlabel=True)
     assert g.vlabels is not None
     # same-label wedge query, differential vs unfiltered run
     q = make_query([(0, 1), (1, 2)], [2, 2, 2])

@@ -32,7 +32,7 @@ def test_stream_rmat15(rmat15_dag):
 
 def test_ring_rmat15(rmat15_dag):
     from graphminer_tpu.ops.ring import RingEngine
-    eng = RingEngine(rmat15_dag, use_pallas=False)
+    eng = RingEngine(rmat15_dag)
     assert eng.count() == RMAT15_TRIANGLES
 
 

@@ -3,7 +3,7 @@
 The stream engine is the round-2 headline TC fast path; it must agree
 bit-exactly with the generic setops backend and the golden counts
 (src/triangle/README.md:53) across core sizes and width-class configs.
-Small class tuples keep CPU compile time down; the TPU defaults share the
+Small class tuples keep CPU compile time down; the device defaults share the
 same code paths.
 """
 import numpy as np

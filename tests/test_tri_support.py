@@ -7,9 +7,9 @@ from graphminer_tpu.ops.tri_support import tri_support, diamond_count_fast
 
 
 @pytest.fixture(scope="module")
-def citeseer():
+def citeseer(citeseer_path):
     from graphminer_tpu import load_graph
-    return load_graph("/root/reference/inputs/citeseer/graph")
+    return load_graph(citeseer_path)
 
 
 def test_diamond_citeseer_golden(citeseer):
